@@ -1,6 +1,6 @@
-"""spread_spectrum_watermarking_tpu: a TPU-native spread-spectrum watermarking framework.
+"""spread_spectrum_watermarking_tpu: spread-spectrum image watermarking in JAX.
 
-A from-scratch JAX/XLA/Pallas implementation of the non-blind spread-spectrum
+A from-scratch JAX/XLA implementation of the non-blind spread-spectrum
 image watermarking algorithm of Cox, Kilian, Leighton & Shamoon (IEEE Trans.
 Image Processing 6(12), 1997; patent US5930369), with the same capabilities as
 the reference Rust crate ``iwanders/spread_spectrum_watermarking`` -- but

@@ -8,8 +8,9 @@ Version1 JSON store with the config embedded (examples/main.rs:284-304); the
 legacy ``.wm`` reader; and the YAML-ish result block of the ``test``
 subcommand (examples/main.rs:418-429).
 
-Extensions the reference lacks: ``batch`` (embed a directory of images in one
-sharded TPU batch) and ``bench`` (throughput harness).
+Extensions the reference lacks: ``batch`` (embed a directory of images in
+batched device programs), ``detect`` (a detection service) and ``bench``
+(throughput harness, GPU only).
 """
 
 from __future__ import annotations
@@ -251,8 +252,8 @@ def cmd_detect(args) -> int:
     The reference CLI's ``test`` re-derives the base reader per invocation;
     a detection service has FIXED originals and a stream of suspect images,
     so ``detect`` ranks the base once per (config, tier, generation, length)
-    group -- the cached path the extract-cached benchmark measures at
-    ~11.5k img/s/chip -- and then processes derived images from the command
+    group -- the cached path the extract-cached benchmark measures -- and
+    then processes derived images from the command
     line and/or stdin (one path per line), emitting one JSON line per
     (derived image, candidate mark). Per-image failures are isolated like
     ``batch`` (recorded, nonzero exit, stream continues).
@@ -457,65 +458,58 @@ def cmd_batch(args) -> int:
 
 
 def cmd_bench(args) -> int:
-    import json as _json
+    from .bench import (require_gpu, run_bench, run_cached_extract_bench,
+                        run_corpus_bench, run_corpus_sharded_bench,
+                        run_latency_bench, run_similarity_sweep_bench,
+                        run_verified_bench)
 
-    from .bench import (run_bench, run_cached_extract_bench, run_corpus_bench,
-                        run_corpus_sharded_bench, run_latency_bench,
-                        run_similarity_sweep_bench, run_verified_bench)
-
+    try:
+        device = require_gpu()
+    except RuntimeError as e:
+        print(f"bench: {e}", file=sys.stderr)
+        return 2
     if args.config == "throughput":
-        run_bench(batch=args.batch, size=args.size, length=args.length,
-                  iters=args.iters, profile_dir=args.profile_dir,
-                  content=args.content, precision=args.precision)
+        res = run_bench(batch=args.batch, size=args.size, length=args.length,
+                        iters=args.iters, profile_dir=args.profile_dir,
+                        content=args.content, precision=args.precision)
     elif args.config == "latency":
         # Batch-1 single-stream latency (device-side).
         res = run_latency_bench(size=args.size, length=args.length,
                                 iters=args.iters, precision=args.precision)
-        print(_json.dumps({k: (round(v, 4) if isinstance(v, float) else v)
-                           for k, v in res.items()}))
     elif args.config == "extract-cached":
         # Reader-cached detection service: fixed originals, streamed derived.
         res = run_cached_extract_bench(batch=args.batch, size=args.size,
                                        length=args.length, iters=args.iters,
                                        precision=args.precision)
-        print(_json.dumps({k: (round(v, 4) if isinstance(v, float) else v)
-                           for k, v in res.items()}))
     elif args.config == "embed-verified":
         # Fused mark-then-confirm round trip (one program).
         res = run_verified_bench(batch=args.batch, size=args.size,
                                  length=args.length, iters=args.iters,
                                  precision=args.precision)
-        print(_json.dumps({k: (round(v, 4) if isinstance(v, float) else v)
-                           for k, v in res.items()}))
     elif args.config == "corpus":
         # BASELINE config 4: 1024-image corpus + 10k-watermark sweep.
         res = run_corpus_bench(n_images=args.corpus_images, chunk=args.batch,
                                size=args.size, length=args.length,
                                n_marks=args.sweep_marks,
                                precision=args.precision)
-        print(_json.dumps({k: (round(v, 4) if isinstance(v, float) else v)
-                           for k, v in res.items()}))
     elif args.config == "corpus-sharded":
         # BASELINE config 5: corpus over a joint (data, spatial) mesh.
         res = run_corpus_sharded_bench(
             n_images=args.corpus_images, chunk=args.batch, size=args.size,
             length=args.length, precision=args.precision)
-        print(_json.dumps({k: (round(v, 4) if isinstance(v, float) else v)
-                           for k, v in res.items()}))
-    elif args.config == "sweep":
+    else:  # sweep
         res = run_similarity_sweep_bench(n_extracted=args.corpus_images,
                                          n_marks=args.sweep_marks,
                                          length=args.length, iters=args.iters,
                                          precision=args.precision)
-        print(_json.dumps({k: (round(v, 6) if isinstance(v, float) else v)
-                           for k, v in res.items()}))
+    print(json.dumps({**res, **device}))
     return 0
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="ssw-tpu",
-        description="TPU-native spread-spectrum watermarking "
+        description="Spread-spectrum image watermarking in JAX "
                     "(Cox et al. 1997, patent US5930369 step-42 equations).")
     sub = parser.add_subparsers(dest="command")
 
@@ -579,8 +573,7 @@ def main(argv=None) -> int:
     p_bench.add_argument("--precision", choices=_PRECISION_CHOICES,
                          default="default",
                          help="Transform precision tier for the measured "
-                              "pipelines (default: the production tier, "
-                              "matching README's tables).")
+                              "pipelines (default: the production tier).")
     p_bench.add_argument("--batch", type=int, default=32)
     p_bench.add_argument("--size", default="1080p",
                          help="HxW (e.g. 1080x1920) or 1080p/4k/cat")
@@ -605,6 +598,9 @@ def main(argv=None) -> int:
                               "uniform noise or natural-image mosaic crops.")
 
     args = parser.parse_args(argv)
+    from .utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     if args.command == "watermark":
         return cmd_watermark(args)
     if args.command == "test":

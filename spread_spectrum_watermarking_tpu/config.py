@@ -47,11 +47,18 @@ class Ordering(str, enum.Enum):
 
 
 class Precision(str, enum.Enum):
-    """Matmul precision for the DCT passes on the MXU.
+    """Transform precision tier.
 
-    DEFAULT   = single-pass bf16 (fastest, ~1e-3 relative error)
-    HIGH      = 3-pass bf16 (near-f32, the recommended throughput setting)
-    HIGHEST   = 6-pass bf16 (full f32 fidelity, used by parity tests)
+    HIGHEST   = IEEE f32 dots everywhere: the reference-exact parity tier.
+    HIGH      = the fast path with its f32-operand dots (the first DCT pass
+                and the read side's gather-dot) at ``lax.Precision.HIGH``,
+                which an H100 runs as TF32.
+    DEFAULT   = the fast path with every dot on bf16 operands (f32
+                accumulation): the production tier.
+
+    Both fast tiers rank on a plane whose second pass is a bf16 dot, and
+    invert the sparse delta in bf16; ``tests/test_precision_gate.py`` and
+    ``chip_smoke.py`` pin their detection to HIGHEST's.
     """
 
     DEFAULT = "default"
@@ -97,7 +104,7 @@ class WriteConfig:
     custom_insert: Optional[Callable] = None
     # Optional custom ranking metric: callable (flat_indices, values) ->
     # metric, ranked descending with ties broken toward the lower flat index.
-    # The vectorized-TPU equivalent of the reference's comparator-based
+    # The vectorized equivalent of the reference's comparator-based
     # ``OrderingMethod::Custom`` (src/algorithm.rs:150-151): a comparator
     # cannot be data-parallel, a metric can. Overrides ``ordering`` when set.
     custom_ordering: Optional[Callable] = None

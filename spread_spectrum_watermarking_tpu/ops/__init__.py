@@ -1,4 +1,4 @@
-"""Core TPU ops: colorspace, DCT, ranking, modulation."""
+"""Core ops: colorspace, DCT, ranking, modulation."""
 
 from . import colorspace, dct, modulation, ranking
 

@@ -1,9 +1,8 @@
 """Batched RGB <-> YIQ color conversion and u8 <-> f32 quantization.
 
-TPU-native reimplementation of the reference's per-pixel scalar loops
-(reference: src/yiq.rs:120-197) as one batched matmul over the trailing
-channel axis -- a (..., 3) x (3, 3) contraction the VPU/MXU eats whole, and
-which XLA fuses into neighboring elementwise work.
+Batched reimplementation of the reference's per-pixel scalar loops
+(reference: src/yiq.rs:120-197) as contractions over the trailing channel
+axis, which XLA fuses into neighboring elementwise work.
 
 The conversion matrices are the Python 3.3 ``colorsys`` constants, kept
 deliberately non-ITU-exact for parity with the reference
@@ -52,8 +51,8 @@ def rgb_to_yiq(rgb: jax.Array) -> jax.Array:
     """
     m = jnp.asarray(RGB_TO_YIQ)
     # Left-to-right pairwise sum order mirrors the reference's
-    # ``d00*v0 + d01*v1 + d02*v2``; einsum would be equivalent numerically on
-    # TPU but we keep the explicit form for f32 determinism across backends.
+    # ``d00*v0 + d01*v1 + d02*v2``; the explicit form keeps that f32 sum
+    # order on every backend.
     r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
     y = (m[0, 0] * r + m[0, 1] * g) + m[0, 2] * b
     i = (m[1, 0] * r + m[1, 1] * g) + m[1, 2] * b
@@ -66,9 +65,9 @@ def rgb_to_luma(rgb: jax.Array) -> jax.Array:
 
     The watermarking transform only ever reads Y (reference:
     src/algorithm.rs:330-342 operates on ``yiq.y``); computing it directly
-    avoids materializing the I/Q planes on the embed/extract hot path. The
-    einsum contraction over the channel axis is ~1.6x faster on TPU than
-    strided per-channel slices of the interleaved (..., 3) layout.
+    avoids materializing the I/Q planes on the embed/extract hot path. It is
+    one contraction over the interleaved channel axis rather than strided
+    per-channel slices.
     """
     m = jnp.asarray(RGB_TO_YIQ)
     return jnp.einsum("...c,c->...", rgb, m[0],
@@ -90,9 +89,8 @@ def luma_diff(base: jax.Array, derived: jax.Array) -> jax.Array:
         # Exact in f32: |channel diff| <= 255 and every product/sum stays
         # under 2^24, so the f32 arithmetic is integer-exact and the only
         # rounding is the final /25500 -- bit-identical to an int32
-        # formulation. The einsum contraction over the interleaved channel
-        # axis is ~2x faster on TPU than per-channel strided slices (59 ->
-        # ~25 us/img at 1080p, XProf-measured; same effect as rgb_to_luma).
+        # formulation. One contraction over the interleaved channel axis,
+        # as in rgb_to_luma.
         d = derived.astype(jnp.float32) - base.astype(jnp.float32)
         w = jnp.asarray([30.0, 59.0, 11.0], jnp.float32)
         num = jnp.einsum("...c,c->...", d, w,
@@ -146,8 +144,8 @@ def add_luma_delta_u8(rgb_u8: jax.Array, dy: jax.Array) -> jax.Array:
     ~1e-7 relative, far below the 1/255 quantization step.
 
     Channel-planar formulation: each channel is sliced, updated, and the
-    three results stacked -- measured 60 vs 77 us/img at 1080p against the
-    broadcast form, whose (B, H, W, 3) f32 intermediate XLA materializes.
+    three results stacked, so XLA materializes no (B, H, W, 3) f32
+    intermediate as it does for the broadcast form.
     """
     df = dy.astype(jnp.float32) * 255.0
     outs = [

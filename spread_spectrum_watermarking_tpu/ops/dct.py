@@ -1,12 +1,12 @@
-"""Full-frame 2-D DCT-II / inverse DCT-III in matmul form (MXU-native).
+"""Full-frame 2-D DCT-II / inverse DCT-III in matmul form.
 
 The reference performs the 2-D DCT as sequential 1-D FFT-based passes over
 every row then every column (reference: src/dct2d.rs:83-219, "a pretty
 non-optimised implementation that does all rows and columns in sequence",
-src/dct2d.rs:6-7). On TPU the right formulation is dense cosine-basis
-matmuls: ``C_h @ X @ C_w^T`` keeps the systolic array busy, batches freely
-over images, and lets XLA fuse the surrounding elementwise work. Basis
-matrices up to 4K (4096^2 f32 = 64 MB in HBM) are cheap and cached per size.
+src/dct2d.rs:6-7). Here it is dense cosine-basis matmuls:
+``C_h @ X @ C_w^T`` runs on the matrix units, batches freely over images,
+and lets XLA fuse the surrounding elementwise work. Basis matrices up to 4K
+(4096^2 f32 = 64 MB of device memory) are cheap and cached per size.
 
 Scaling contract (must match scipy.fftpack, reference src/dct2d.rs:105-118):
 
@@ -124,9 +124,8 @@ def dct2_2d(
     (the reference orders larger-dim-first only for scratch reuse,
     src/dct2d.rs:93-98). ``fold`` halves the matmul FLOPs for even
     dimensions via basis symmetry (see :func:`_fold_pass_rows`) but is OFF by
-    default: measured on TPU v5e at 1080p, the fold's lane-reversal and
-    interleave relayouts cost more than the saved FLOPs (911 vs 1279
-    embeds/s). It may win for much larger planes where matmuls dominate.
+    default: the fold's reversal and interleave relayouts can cost more than
+    the saved FLOPs. Whether it wins on the GPU is not measured.
     """
     h, w = x.shape[-2], x.shape[-1]
     ch = jnp.asarray(dct2_basis(h, ortho))
@@ -188,18 +187,16 @@ def dct2_dot_at(
     image's n ranked indices (reference: src/algorithm.rs:556-561), so the
     second full pass is wasted work.
 
-    Formulation (fast tiers): a TPU gather of n random rows from a per-image
-    HBM plane costs ~50 ns/row (~50 us/img at n=1000, measured v5e) -- more
-    than the arithmetic it feeds. So instead of gathering ``t``'s rows, the
-    contraction runs as one batched MXU matmul against basis columns taken at
-    the requested positions (takes from a *shared* basis are cheap: they
-    vectorize across the batch), and the row selection happens afterwards as
-    a one-hot masked reduction over the skinny (..., H, n) product -- no
-    per-image gather anywhere. Measured 63 vs 104 us/img at 1080p/n=1000.
+    Formulation (fast tiers): instead of gathering ``t``'s rows per image,
+    the contraction runs as one batched matmul against basis columns taken
+    at the requested positions (takes from a *shared* basis vectorize across
+    the batch), and the row selection happens afterwards as a one-hot masked
+    reduction over the skinny (..., H, n) product -- no per-image gather.
+    Whether this beats the gather+dot form on the GPU is not measured.
 
-    At HIGHEST the original gather+dot form is kept: its f32 dot contracts in
-    one reduction (parity-critical last-ulp behavior), and the f32 matmul of
-    the masked form would cost 8x MXU throughput for no accuracy gain.
+    At HIGHEST the gather+dot form is kept: its f32 dot contracts in one
+    reduction (parity-critical last-ulp behavior), and the f32 matmul of the
+    masked form would cost far more for no accuracy gain.
     """
     h = t.shape[-2]
     w = t.shape[-1]
@@ -273,7 +270,7 @@ def dct2_coeffs_at(
 
     FLOP cost ``min(H, W) / (H + W)`` of the full 2-D transform (~36% at
     1080p) plus an O(n * max(H, W)) gather-contraction. Numerically identical
-    math to gathering :func:`dct2_2d`'s output (same bases, f32 MXU
+    math to gathering :func:`dct2_2d`'s output (same bases, f32
     accumulation); only the contraction tiling may differ in the last ulps.
 
     Args:
@@ -345,8 +342,7 @@ def idct2_2d(
     Matches the reference's ``dct2_2d(Type::DCT3)`` net scaling
     (src/dct2d.rs:109,213-218): per-pass 0.5 is folded into the basis, the
     global ``4/(W*H)`` is applied at the end. ``fold`` as in
-    :func:`dct2_2d` (off by default -- relayout cost exceeds FLOP savings at
-    1080p on v5e).
+    :func:`dct2_2d` (off by default).
     """
     h, w = x.shape[-2], x.shape[-1]
     dh = jnp.asarray(dct3_basis(h))

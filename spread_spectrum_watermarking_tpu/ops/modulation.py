@@ -98,12 +98,12 @@ def similarity(extracted: jax.Array, candidates: jax.Array,
     normalization is by the *extracted* mark's norm only.
 
     The 10k-watermark similarity sweep is literally this one matmul.
-    ``precision`` trades matmul exactness for MXU rate on large database
-    sweeps: the default HIGHEST is the f32 parity path (matches the
-    reference's f32 accumulation to float tolerance); HIGH (bf16 3-pass)
-    perturbs a ~30-sigma statistic by < 1e-3 sigma and runs the sweep ~3x
-    faster on TPU. Detection-threshold semantics are unchanged at either
-    setting; the parity tests pin HIGHEST.
+    ``precision`` trades matmul exactness for rate on large database
+    sweeps: the default HIGHEST is IEEE f32 (matches the reference's f32
+    accumulation to float tolerance); on an H100, HIGH and DEFAULT both run
+    as TF32, whose error against float64 ``chip_smoke.py`` prints.
+    Detection-threshold semantics are unchanged at either setting; the
+    parity tests pin HIGHEST.
     """
     nom = jnp.einsum("...n,kn->...k", extracted, candidates,
                      precision=precision)

@@ -2,7 +2,7 @@
 
 The reference ranks *all* W*H coefficients with a comparison sort and then
 uses only the strongest N (reference: src/algorithm.rs:200-280). Only the
-top-N ranks ever matter, so on TPU this is an exact hierarchical top-k over
+top-N ranks ever matter, so here this is an exact hierarchical top-k over
 a vectorized metric -- O(W*H) work instead of a full O(W*H log W*H) sort,
 and batched over images.
 
@@ -109,10 +109,9 @@ def _metric_from_values(
 def _tiled_exact_top_k(flat: jax.Array, n: int, tile: int = 32) -> jax.Array:
     """Exact top-n indices via hierarchical tile pruning. No approximation.
 
-    ``jax.lax.top_k`` with large n lowers to a full variadic sort of all W*H
-    (value, index) pairs on TPU -- measured ~65-138 ms for a 32-image 1080p
-    batch, the single hottest op in the whole pipeline. This replaces it with
-    three cheap steps that are *provably* equivalent, ties included:
+    ``jax.lax.top_k`` with large n can lower to a full variadic sort of all
+    W*H (value, index) pairs. This replaces it with three cheap steps that
+    are *provably* equivalent, ties included:
 
     1. split the row into T contiguous tiles of ``tile`` elements and take
        each tile's max (one bandwidth-bound pass);
@@ -128,9 +127,6 @@ def _tiled_exact_top_k(flat: jax.Array, n: int, tile: int = 32) -> jax.Array:
        lexicographically ``lax.sort`` them by (-metric, flat index) -- exactly
        the reference's descending-stable order, so even equal-valued
        coefficients land in identical rank positions.
-
-    Measured ~7 ms (with one recursion level) where ``lax.top_k`` took
-    ~65-138 ms on a 32-image 1080p batch.
     """
     *lead, size = flat.shape
     pad = (-size) % tile
@@ -160,27 +156,25 @@ def approx_top_indices(
     custom_metric=None,
     version: int = 2,
 ):
-    """TPU-native approximate top-n: one fused metric + ``approx_max_k``.
+    """Fast-tier top-n: one fused bf16 metric key + ``approx_max_k``.
 
     Returns ``(indices, values)``: the rank-ordered flat indices AND the
     coefficient values at them. The values ride along through the re-sort so
-    the pipeline never issues a second scattered gather from the full plane
-    (a TPU gather of n random positions from a W*H plane costs more than the
-    sort itself: one extra such gather measured -160 img/s on the 1080p
-    headline).
+    the pipeline never issues a second scattered gather from the full plane.
 
     The production (non-HIGHEST) pipelines rank on this instead of the exact
-    hierarchical selection: ``jax.lax.approx_max_k`` lowers to the TPU
-    PartialReduce unit and runs ~3x faster than the exact path (0.10 vs 0.32
-    ms/image on a 32x1080p batch, v5e), at measured recall ~0.985 against the
-    exact ordering. The ~1.5% substitutions are coefficients of near-boundary
-    energy, so detection strength is statistically unchanged -- and because
-    the Writer and Reader both derive indices from the *base* image with this
-    same deterministic function, embed/extract index agreement (the only hard
-    correctness requirement, reference src/algorithm.rs:543-562) is exact.
+    hierarchical selection. ``jax.lax.approx_max_k`` selects approximately
+    only on a TPU; on the GPU and the CPU, JAX lowers it as a sort of the
+    whole row and a slice (``jax/_src/lax/ann.py``), which is an exact
+    selection on the bf16 keys. Because the Writer and Reader both derive
+    indices from the *base* image with this same deterministic function,
+    embed/extract index agreement (the only hard correctness requirement,
+    reference src/algorithm.rs:543-562) holds on one backend; across
+    backends the bf16 plane itself can round differently (see
+    utils/storage.py).
 
     Output is descending-metric ordered like the reference's full sort
-    (src/algorithm.rs:204-210): the PartialReduce pass *selects* the n
+    (src/algorithm.rs:204-210): the selection picks the n
     candidates on bf16 keys, then the selection is re-sorted descending with
     ascending-index tie-break -- an O(n log n) sort on n elements. At
     ``version=2`` the re-sort key is the LSB-masked bf16 magnitude
@@ -204,11 +198,9 @@ def approx_top_indices(
     ``version=1`` (legacy): selection on the plain bf16 metric keys, ONE
     gather of the n coefficient values from the plane, f32-metric re-sort.
 
-    ``version=2``, GATHER-FREE VALUES (current): a TPU gather of n random
-    elements from the per-image HBM plane costs ~47 us/img at 1080p/n=1000
-    -- more than the PartialReduce stream it follows. So for the built-in
-    orderings the plane is never gathered: the value estimate rides INSIDE
-    the approx_max_k key. ENERGY / ENERGY_ORTHOGONAL order by |v| (same
+    ``version=2``, GATHER-FREE VALUES (current): for the built-in orderings
+    the plane is never gathered: the value estimate rides INSIDE the
+    approx_max_k key. ENERGY / ENERGY_ORTHOGONAL order by |v| (same
     order as v^2) with the coefficient's sign bit stored in the bf16 key's
     LSB (a half-ulp perturbation of the ordering, the same class as the bf16
     key rounding itself); LEGACY orders by the signed scaled value, which IS

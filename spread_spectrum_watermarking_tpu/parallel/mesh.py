@@ -1,8 +1,10 @@
 """Device mesh construction and sharding policy.
 
 The reference is strictly single-threaded (SURVEY.md section 2.1); here
-scaling is expressed TPU-natively with ``jax.sharding.Mesh`` +
-``NamedSharding``/``shard_map`` and XLA collectives over ICI:
+scaling is expressed with ``jax.sharding.Mesh`` +
+``NamedSharding``/``shard_map`` and XLA collectives (NCCL on GPUs). The
+mesh follows the algorithm: the cards of one host are joined all to all, so
+devices are placed in ``jax.devices()`` order.
 
 - axis ``data``: the image batch (DP) -- the primary axis for the 1024x1080p
   corpus configs.
@@ -52,9 +54,9 @@ def replicated(mesh: Mesh) -> NamedSharding:
 
 
 def multihost_initialize(**kwargs) -> None:
-    """Initialize cross-host JAX (DCN) -- thin alias for discoverability.
+    """Initialize multi-process JAX -- thin alias for discoverability.
 
-    On a multi-host pod slice call this once per process before building
-    meshes; collectives then ride ICI within the slice and DCN across hosts.
+    Call this once per process before building meshes, with the
+    coordinator address, process count and process id given explicitly.
     """
     jax.distributed.initialize(**kwargs)

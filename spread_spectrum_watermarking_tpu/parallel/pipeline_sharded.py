@@ -13,11 +13,11 @@ Two scaling modes (SURVEY.md section 2.1):
   back into the column-sharded coefficient layout.
 
 - :func:`embed_corpus` / :func:`extract_corpus`: joint DP x TP for a corpus
-  of images each too large for one chip (BASELINE config 5: a 4K corpus
-  sharded across a multi-host pod). One shard_map over BOTH mesh axes: the
+  of images each too large for one device (BASELINE config 5: a 4K corpus
+  sharded across devices). One shard_map over BOTH mesh axes: the
   batch is split over ``data``, each image's rows over ``spatial``. The
   forward transform is the sharded DCT (one all-to-all per image over the
-  spatial axis only -- lays on ICI when ``spatial`` is the minor mesh axis);
+  spatial axis only);
   the inverse is a purely LOCAL sparse delta-IDCT: after the distributed
   top-k replicates the (n,) modulated deltas over the spatial axis, each
   device reconstructs dY for its own row block with one skinny matmul, so
@@ -38,9 +38,9 @@ from jax import shard_map
 from ..config import ReadConfig, WriteConfig, jax_precision
 from ..models import pipeline
 from ..ops import colorspace, modulation
-from ..ops.dct import dct3_basis
 from .dct_sharded import (_pad_last2, dct2_2d_sharded_padded,
-                          idct2_2d_sharded_padded, padded_size)
+                          idct2_2d_sharded_padded, padded_size,
+                          replicated_basis)
 from .mesh import DATA_AXIS, SPATIAL_AXIS
 from .topk_sharded import distributed_top_indices
 
@@ -114,10 +114,18 @@ def _modulate_sharded(coeffs, marks, mesh: Mesh, config: WriteConfig,
     )(coeffs, marks)
 
 
+def _spatial_bases(mesh: Mesh, h: int, w: int, kinds):
+    """Replicated (Hp, Hp) and (Wp, Wp) bases of each kind, in order."""
+    ns = mesh.shape[SPATIAL_AXIS]
+    return tuple(replicated_basis(k, n, padded_size(n, ns), mesh)
+                 for k in kinds for n in (h, w))
+
+
 @functools.partial(jax.jit, static_argnames=("mesh", "config", "quantize", "h"))
-def _embed_spatial_jit(rgb, marks, mesh, config, quantize, h):
+def _embed_spatial_jit(rgb, marks, bases, mesh, config, quantize, h):
     # ``rgb`` arrives with its rows already zero-padded to divisibility and
     # row-sharded (see _place_row_sharded); ``h`` is the true height.
+    # ``bases`` is (ch, cw, dh, dw) from _spatial_bases.
     w = rgb.shape[1]
     n = mesh.shape[SPATIAL_AXIS]
     wp = padded_size(w, n)
@@ -127,10 +135,10 @@ def _embed_spatial_jit(rgb, marks, mesh, config, quantize, h):
     # pad the luma plane up to divisibility; the zero-extended bases keep the
     # padding inert, the top-k masks it out, and the result is cropped.
     y_pad = _pad_last2(yiq[..., 0], hp, wp)
-    coeffs = dct2_2d_sharded_padded(y_pad, mesh, h, w,
+    coeffs = dct2_2d_sharded_padded(y_pad, mesh, bases[:2],
                                     precision=config.precision)
     coeffs = _modulate_sharded(coeffs, marks, mesh, config, h, w)
-    y = idct2_2d_sharded_padded(coeffs, mesh, h, w,
+    y = idct2_2d_sharded_padded(coeffs, mesh, h, w, bases[2:],
                                 precision=config.precision)[..., :h, :w]
     out = colorspace.yiq_to_rgb(
         jnp.concatenate([y[..., None], yiq[..., :h, :, 1:]], axis=-1))
@@ -169,23 +177,24 @@ def embed_spatial(rgb, marks, mesh: Mesh,
     """
     if marks.ndim == 1:
         marks = marks[None]
-    h = rgb.shape[0]
+    h, w = rgb.shape[:2]
     rgb = _place_row_sharded(rgb, mesh)
     marks = jax.device_put(marks, NamedSharding(mesh, P()))
-    return _embed_spatial_jit(rgb, marks, mesh, config, quantize, h)
+    bases = _spatial_bases(mesh, h, w, ("dct2", "dct3"))
+    return _embed_spatial_jit(rgb, marks, bases, mesh, config, quantize, h)
 
 
 @functools.partial(jax.jit, static_argnames=("mesh", "config", "n", "h"))
-def _extract_spatial_jit(base, derived, n, mesh, config, h):
+def _extract_spatial_jit(base, derived, bases, n, mesh, config, h):
     # Inputs arrive row-padded to divisibility and row-sharded; ``h`` is the
-    # true height (see _place_row_sharded).
+    # true height (see _place_row_sharded); ``bases`` is (ch, cw).
     w = base.shape[1]
     nspatial = mesh.shape[SPATIAL_AXIS]
     hp, wp = base.shape[0], padded_size(w, nspatial)
     yb = _pad_last2(colorspace.rgb_to_yiq(pipeline._to_f32(base))[..., 0], hp, wp)
     yd = _pad_last2(colorspace.rgb_to_yiq(pipeline._to_f32(derived))[..., 0], hp, wp)
-    cb = dct2_2d_sharded_padded(yb, mesh, h, w, precision=config.precision)
-    cd = dct2_2d_sharded_padded(yd, mesh, h, w, precision=config.precision)
+    cb = dct2_2d_sharded_padded(yb, mesh, bases, precision=config.precision)
+    cd = dct2_2d_sharded_padded(yd, mesh, bases, precision=config.precision)
 
     def local(cb_blk, cd_blk):
         wb = cb_blk.shape[1]
@@ -220,10 +229,11 @@ def extract_spatial(base, derived, n: int, mesh: Mesh,
             "Derived coefficient length not equal to base coefficient length.")
     if n >= base.shape[0] * base.shape[1]:
         raise ValueError("Desired extraction length exceeds available coefficients.")
-    h = base.shape[0]
+    h, w = base.shape[:2]
     base = _place_row_sharded(base, mesh)
     derived = _place_row_sharded(derived, mesh)
-    return _extract_spatial_jit(base, derived, n, mesh, config, h)
+    bases = _spatial_bases(mesh, h, w, ("dct2",))
+    return _extract_spatial_jit(base, derived, bases, n, mesh, config, h)
 
 
 # ---------------------------------------------------------------------------
@@ -261,21 +271,11 @@ def _gather_replicated(coef_blk, idx, width):
 
 @functools.partial(
     jax.jit, static_argnames=("mesh", "config", "h", "w"))
-def _embed_corpus_jit(rgb, marks, mesh, config, h, w):
-    hp = rgb.shape[1]
-    ns = mesh.shape[SPATIAL_AXIS]
-    wp = padded_size(w, ns)
-    from .dct_sharded import _dct2_basis_padded
-    ch = jnp.asarray(_dct2_basis_padded(h, hp))
-    cw = jnp.asarray(_dct2_basis_padded(w, wp))
-    # Inverse row basis, zero-extended over padding rows (dY there is 0).
-    import numpy as np
-    # dct3_basis is [pixel, coeff]; zero-extend the PIXEL rows over padding
-    # (dY is 0 there), keep all coefficient columns.
-    dh_np = np.zeros((hp, h), np.float32)
-    dh_np[:h] = np.asarray(dct3_basis(h))
-    dh_pad = jnp.asarray(dh_np)
-    dw = jnp.asarray(dct3_basis(w))  # (w, w): dw[pixel, coeff]
+def _embed_corpus_jit(rgb, marks, bases, mesh, config, h, w):
+    # ``bases``: ch (Hp, Hp), cw (Wp, Wp), and the inverse bases
+    # dh_pad (Hp, Hp) and dw (W, W), indexed [pixel, coeff]; dh_pad's
+    # padding pixel rows are zero (dY is 0 there).
+    ch, cw, dh_pad, dw = bases
     p = jax_precision(config.precision)
 
     def local(rgb_blk, marks_blk, ch, cw, dh_pad, dw):
@@ -299,7 +299,8 @@ def _embed_corpus_jit(rgb, marks, mesh, config, h, w):
         # no second all-to-all, no full inverse transform.
         hl = rgb_blk.shape[1]
         row0 = jax.lax.axis_index(SPATIAL_AXIS) * hl
-        dh_loc = jax.lax.dynamic_slice(dh_pad, (row0, 0), (hl, h))
+        dh_loc = jax.lax.dynamic_slice(dh_pad, (row0, 0),
+                                       (hl, dh_pad.shape[1]))
 
         def inverse(idx_img, delta_img):
             rows_i, cols_i = idx_img // w, idx_img % w
@@ -317,17 +318,12 @@ def _embed_corpus_jit(rgb, marks, mesh, config, h, w):
         in_specs=(P(DATA_AXIS, SPATIAL_AXIS, None, None), P(DATA_AXIS, None),
                   P(None, None), P(None, None), P(None, None), P(None, None)),
         out_specs=P(DATA_AXIS, SPATIAL_AXIS, None, None),
-    )(rgb, marks, ch, cw, dh_pad, dw)
+    )(rgb, marks, *bases)
 
 
 @functools.partial(jax.jit, static_argnames=("mesh", "config", "n", "h", "w"))
-def _extract_corpus_jit(base, derived, n, mesh, config, h, w):
-    hp = base.shape[1]
-    ns = mesh.shape[SPATIAL_AXIS]
-    wp = padded_size(w, ns)
-    from .dct_sharded import _dct2_basis_padded
-    ch = jnp.asarray(_dct2_basis_padded(h, hp))
-    cw = jnp.asarray(_dct2_basis_padded(w, wp))
+def _extract_corpus_jit(base, derived, bases, n, mesh, config, h, w):
+    wp = bases[1].shape[0]
 
     def local(base_blk, derived_blk, ch, cw):
         cb = _corpus_forward(base_blk, ch, cw, config.precision)
@@ -362,7 +358,7 @@ def _extract_corpus_jit(base, derived, n, mesh, config, h, w):
                   P(DATA_AXIS, SPATIAL_AXIS, None, None),
                   P(None, None), P(None, None)),
         out_specs=P(DATA_AXIS, None),
-    )(base, derived, ch, cw)
+    )(base, derived, *bases)
 
 
 def _place_corpus(imgs, mesh: Mesh):
@@ -392,7 +388,10 @@ def embed_corpus(rgb, marks, mesh: Mesh, config: WriteConfig = WriteConfig()):
     h, w = rgb.shape[1], rgb.shape[2]
     rgb = _place_corpus(rgb, mesh)
     marks = jax.device_put(marks, NamedSharding(mesh, P(DATA_AXIS, None)))
-    return _embed_corpus_jit(rgb, marks, mesh, config, h, w)
+    bases = (*_spatial_bases(mesh, h, w, ("dct2",)),
+             replicated_basis("dct3", h, rgb.shape[1], mesh),
+             replicated_basis("dct3", w, w, mesh))
+    return _embed_corpus_jit(rgb, marks, bases, mesh, config, h, w)
 
 
 def extract_corpus(base, derived, n: int, mesh: Mesh,
@@ -411,4 +410,5 @@ def extract_corpus(base, derived, n: int, mesh: Mesh,
         raise ValueError("Desired extraction length exceeds available coefficients.")
     base = _place_corpus(base, mesh)
     derived = _place_corpus(derived, mesh)
-    return _extract_corpus_jit(base, derived, n, mesh, config, h, w)
+    bases = _spatial_bases(mesh, h, w, ("dct2",))
+    return _extract_corpus_jit(base, derived, bases, n, mesh, config, h, w)

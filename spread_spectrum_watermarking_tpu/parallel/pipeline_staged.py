@@ -5,8 +5,8 @@ one thread (SURVEY.md section 2.1 marks pipeline parallelism absent there and
 optional here). This module stages that chain across a ``stage`` mesh axis so
 different devices work on different microbatches' stages concurrently:
 
-    stage 0: u8 RGB -> integer luma -> first DCT-II pass        (1 MXU dot)
-    stage 1: second pass -> rank -> modulate -> sparse delta    (1 MXU dot)
+    stage 0: u8 RGB -> integer luma -> first DCT-II pass        (1 dot)
+    stage 1: second pass -> rank -> modulate -> sparse delta    (1 dot)
     stage 2: sparse delta-IDCT -> add -> clip -> quantize       (skinny dot)
 
 Activations move with one ``lax.ppermute`` per tick: stage 0 -> 1 carries the

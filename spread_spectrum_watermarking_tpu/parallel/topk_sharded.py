@@ -3,7 +3,7 @@
 The reference ranks coefficients with a serial comparison sort over all W*H
 values (reference: src/algorithm.rs:200-210). Sharded, the exact global
 top-n is recovered from per-shard candidates: each device takes its local
-top-n, candidates are all-gathered over ICI (n * n_shards values), and a
+top-n, candidates are all-gathered (n * n_shards values), and a
 final top-n over candidates is exact because the global top-n is a subset of
 the union of per-shard top-n (SURVEY.md section 2.1).
 
@@ -94,7 +94,7 @@ def distributed_top_indices(
     lv, li = jax.lax.top_k(flat_metric, k_local)
     lgi = flat_gidx[li]
 
-    # Gather the (value, global index) candidates from every shard over ICI.
+    # Gather the (value, global index) candidates from every shard.
     # Each shard deposits its candidates in its slot of a zero buffer and a
     # psum combines them -- semantically an all-gather, but the psum result is
     # statically known to be replicated, which lets downstream consumers use

@@ -85,6 +85,20 @@ _JSON_TO_PRECISION = {
 # always had when read on a non-TPU backend, where the kernel never
 # dispatched. No spelling or version key distinguishes this; it is a
 # formulation change within a tier, documented here for completeness.
+#
+# MIGRATION NOTE (backends): fast-tier ("Default2"/"High2") marks written
+# on a TPU were selected by its approximate PartialReduce top-k
+# (``lax.approx_max_k``). On the GPU (and the CPU) the same call sorts the
+# whole row of bf16 keys and slices: an exact selection on the same keys,
+# so such a file reads back here minus whatever boundary coefficients the
+# TPU substituted. Between GPU and CPU the keys themselves can round
+# differently, because the bf16 dots sum in another order: at 1080p
+# ``default`` (four 1/f-texture images), 98.8% of ranked indices agreed,
+# and a mark embedded on one backend and read on the other kept 94-100% of
+# its same-backend sim (worst 30.19 vs 32.07 sigma) -- far above the
+# 6-sigma match threshold (chip_smoke.py rank phase, NVIDIA H100 80GB HBM3,
+# 700 W). Within one backend, embed and extract agreed on every index, also
+# across two processes compiling afresh.
 
 
 def _lookup_spelling(table: dict, value, what: str):

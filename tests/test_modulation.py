@@ -93,10 +93,10 @@ def test_exceeds_sigma_is_strict_greater():
 
 def test_similarity_fast_precisions_preserve_detection():
     # The sweep's precision knob (ops/modulation.similarity) trades matmul
-    # exactness for MXU rate on large database screens. The perturbation of
-    # the sigma statistic must stay far below any detection threshold:
-    # measured on TPU, HIGH 7e-5 sigma and DEFAULT 1.4e-2 sigma max error
-    # for a 1024x10k sweep; pinned here (CPU bf16 emulation) with margin.
+    # exactness for rate on large database screens. The perturbation of
+    # the sigma statistic must stay far below any detection threshold; on
+    # the CPU every precision is f32, and chip_smoke.py prints the card's
+    # error for a 1024x10k sweep.
     import jax
 
     rng = np.random.default_rng(3)

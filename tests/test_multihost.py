@@ -129,7 +129,7 @@ def test_multihost_distributed_topk(tmp_path):
 
 
 def _skip_or_fail_if_unavailable(outs):
-    """Loud-skip guard (VERDICT r3 weak #6): in environments where the
+    """Loud-skip guard: in environments where the
     distributed runtime is known to work -- the repo harness exports
     SSW_REQUIRE_MULTIHOST=1 in conftest.py -- an unavailable runtime is a
     FAILURE, not a silent skip that demotes the only cross-process coverage.
@@ -237,8 +237,7 @@ def test_multihost_corpus_end_to_end(tmp_path):
     extract_corpus (the DP x TP pipelines of BASELINE config 5) over a
     2-process x 4-device global mesh with the batch split ACROSS the process
     boundary, asserting detection and agreement with the single-process
-    pipeline. Round 3 only ran the distributed top-k across processes
-    (VERDICT r3 missing #2)."""
+    pipeline. Round 3 only ran the distributed top-k across processes."""
     worker = tmp_path / "corpus_worker.py"
     worker.write_text(_CORPUS_WORKER)
     coord = f"127.0.0.1:{_free_port()}"

@@ -84,7 +84,7 @@ def test_multimark_interference(cat_image, precision):
     # 16 marks into one image (BASELINE.json config 2): every mark must
     # still be detectable, and all sims are computed in one sweep. Runs at
     # every precision tier -- the fast tiers previously embedded only mark 0
-    # from a shared (M, N) mark set (round-2 VERDICT weak item 1).
+    # from a shared (M, N) mark set.
     m = 16
     wcfg = wm.WriteConfig(precision=precision)
     rcfg = wm.ReadConfig(precision=precision)
@@ -107,7 +107,7 @@ def test_multimark_interference(cat_image, precision):
 @pytest.mark.parametrize("precision",
                          [wm.Precision.HIGH, wm.Precision.DEFAULT])
 def test_batched_shared_multimark_matches_highest(cat_image, precision):
-    # Round-2 VERDICT repro: a batch of 2 images x 4 SHARED (M, N) marks at a
+    # Regression: a batch of 2 images x 4 SHARED (M, N) marks at a
     # fast precision crashed with a broadcast TypeError, and a single image
     # silently embedded only mark 0. Both must now match the HIGHEST path.
     m = 4
@@ -268,7 +268,7 @@ def test_embed_verified_matches_separate_calls(cat_image, precision):
 @pytest.mark.parametrize("sparse_idct", [True, False])
 def test_sparse_idct_flag_detectable_at_every_tier(cat_image, precision,
                                                    sparse_idct):
-    # Regression for VERDICT r3 weak #1: embed(sparse_idct=False) at a fast
+    # Regression: embed(sparse_idct=False) at a fast
     # tier used to rank through the exact HIGHEST-style prologue while the
     # fast Reader ranks on the bf16 plane, embedding marks the Reader could
     # not detect (2.29 sigma vs 31.88 at DEFAULT on this very image). The
@@ -289,7 +289,7 @@ def test_sparse_idct_flag_detectable_at_every_tier(cat_image, precision,
 
 @pytest.mark.parametrize("precision", ALL_PRECISIONS)
 def test_writer_reader_inspection_matches_active_tier(cat_image, precision):
-    # VERDICT r3 weak #2: Writer.indices()/coefficients() must describe what
+    # Writer.indices()/coefficients() must describe what
     # mark() actually embeds at the ACTIVE tier (reference accessors describe
     # the object's real state, src/algorithm.rs:319-327,502-508). At DEFAULT
     # the old HIGHEST-style accessor overlapped the embedded indices only

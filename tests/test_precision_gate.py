@@ -4,7 +4,7 @@ bench.py (the driver's headline) runs ``precision="default"``, which takes
 the fast production path: shared half-pass transform, bf16 metric-only rank
 plane, ``approx_max_k`` ranking, sparse bf16 delta-IDCT
 (models/pipeline.py:_embed_fast/_extract_fast). Round 1 benched this setting
-without any correctness evidence at it (VERDICT.md round 1, weak item 3);
+without any correctness evidence at it;
 these tests pin detection quality at both fast tiers to the
 HIGHEST-precision reference-parity path -- fixed-seed absolute bounds below,
 and a PAIRED same-seed fast-vs-HIGHEST comparison over 8 seeds
@@ -48,7 +48,7 @@ def test_fast_path_self_similarity_at_benched_precision(cat_image, precision):
     # Per-coefficient error is gated by the PAIRED test below (the absolute
     # 0.02-grade bound is pinned seed-robustly at HIGHEST by
     # tests/test_parity.py; a single-seed absolute envelope here hid more
-    # than it gated -- VERDICT r3 weak #4).
+    # than it gated).
     # Null hypothesis unchanged at the fast setting.
     null = rng_compat.generate_fixed_normal_sequence(0xBAAAAAAD, N)
     nsim = float(np.asarray(

@@ -157,7 +157,7 @@ def test_batch_sharded_matches_single(data_mesh, cat_image):
 
 def test_spatial_embed_indivisible_uncropped_cat(spatial_mesh, cat_image):
     # The UNCROPPED 444x640 cat: 444 % 8 != 0. Pad-and-mask TP must agree
-    # with the single-device pipeline (round-1 VERDICT item 7).
+    # with the single-device pipeline.
     mark = np.asarray(wm.generate_normal(jax.random.PRNGKey(4), 500))
     want = np.asarray(wm.embed(jnp.asarray(cat_image), jnp.asarray(mark)))
     got = np.asarray(pipeline_sharded.embed_spatial(
@@ -174,8 +174,8 @@ def test_spatial_embed_indivisible_uncropped_cat(spatial_mesh, cat_image):
 
 
 def test_joint_data_spatial_mesh(cat_image):
-    # A (data=2, spatial=4) mesh exercised on BOTH axes (round-1 VERDICT
-    # noted only (8,1)/(1,8) meshes were ever tested).
+    # A (data=2, spatial=4) mesh exercised on BOTH axes (round 1 tested
+    # only (8,1)/(1,8) meshes).
     mesh = make_mesh((2, 4))
     img = cat_image  # 444x640: also indivisible by the spatial axis (4)
     mark = np.asarray(wm.generate_normal(jax.random.PRNGKey(5), 400))

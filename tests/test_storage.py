@@ -95,7 +95,7 @@ def test_unknown_spellings_rejected_loudly():
     # scenario): a file written by a future generation must fail with a
     # ValueError naming the offending spelling and the supported set -- like
     # the reference's serde error (examples/main.rs:363-365) -- not a bare
-    # KeyError traceback (round-4 VERDICT weak item 4).
+    # KeyError traceback.
     def envelope(method="Option2", ordering="Energy", precision=None):
         v1 = {"config": {"insert_extract": {"alpha": 0.1, "method": method},
                          "ordering": ordering},
